@@ -5,12 +5,13 @@ the AlignmentCache wired at chunk intake and reports the hit rate.
 Prints one JSON line like bench.py."""
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 NUM_READS = int(__import__("os").environ.get("CACHE_READS", 8192))
 DUPLICATION = 4

@@ -7,6 +7,7 @@ Usage: python benchmarks/bench_config2_se.py [num_reads] [ref_mb]
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -19,7 +20,7 @@ def main(argv):
     ref_mb = float(argv[2]) if len(argv) > 2 else 4.6
     import numpy as np
 
-    work = simlib.ensure_dir("/tmp/mapper_bench_c2")
+    work = simlib.ensure_dir(os.path.join(tempfile.gettempdir(), "mapper_bench_c2"))
     ref_path = os.path.join(work, "ref.fasta")
     reads_path = os.path.join(work, "reads.fasta")
     t0 = time.time()

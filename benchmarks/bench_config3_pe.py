@@ -9,6 +9,7 @@ phase (index build, alignment, post-pass writers).
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -21,7 +22,7 @@ def main(argv):
     ref_mb = float(argv[2]) if len(argv) > 2 else 4.6
     import numpy as np
 
-    work = simlib.ensure_dir("/tmp/mapper_bench_c3")
+    work = simlib.ensure_dir(os.path.join(tempfile.gettempdir(), "mapper_bench_c3"))
     ref_path = os.path.join(work, "ref.fasta")
     q1 = os.path.join(work, "reads_1.fasta")
     q2 = os.path.join(work, "reads_2.fasta")

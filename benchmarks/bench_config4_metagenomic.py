@@ -9,6 +9,7 @@ quick runs — the JSON records the actual scale used.
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -22,7 +23,7 @@ def main(argv):
     genome_mb = float(argv[3]) if len(argv) > 3 else 1.0
     import numpy as np
 
-    work = simlib.ensure_dir("/tmp/mapper_bench_c4")
+    work = simlib.ensure_dir(os.path.join(tempfile.gettempdir(), "mapper_bench_c4"))
     ref_path = os.path.join(work, "refs.fasta")
     q1 = os.path.join(work, "reads_1.fasta")
     q2 = os.path.join(work, "reads_2.fasta")
@@ -54,13 +55,7 @@ def main(argv):
 
     from mapper_tpu.cli import main as cli_main
 
-    # service-phase probes (same probes as bench.py): the c4 wall time's
-    # run-to-run swing is dominated by the shared host/device phase, and
-    # recording the probes next to each run makes that attributable
-    import bench as _bench
-
     refcounts = os.path.join(work, "refs_map_count.txt")
-    host_probe_before = _bench._host_probe()
     t1 = time.time()
     cli_main([
         "--reference", ref_path,
@@ -69,7 +64,6 @@ def main(argv):
         "--out-refs-map-count", refcounts,
     ])
     wall = time.time() - t1
-    host_probe_after = _bench._host_probe()
     print(json.dumps({
         "metric": "metagenomic_pairs_per_second_e2e",
         "value": round(num_pairs / wall, 1),
@@ -80,8 +74,6 @@ def main(argv):
             "genome_mb": genome_mb,
             "wall_seconds": round(wall, 1),
             "refcount_lines": sum(1 for _ in open(refcounts)),
-            "host_probe_s": [round(host_probe_before, 3), round(host_probe_after, 3)],
-            "host_probe_nominal_s": _bench.HOST_PROBE_NOMINAL_S,
         },
     }))
 

@@ -9,6 +9,7 @@ sharding path is exercised separately by __graft_entry__.dryrun_multichip.)
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -22,7 +23,7 @@ def main(argv):
     ref_mb = float(argv[3]) if len(argv) > 3 else 10.0
     import numpy as np
 
-    work = simlib.ensure_dir("/tmp/mapper_bench_c5")
+    work = simlib.ensure_dir(os.path.join(tempfile.gettempdir(), "mapper_bench_c5"))
     ref_path = os.path.join(work, "ref.fasta")
     reads_path = os.path.join(work, "reads.fasta")
     t0 = time.time()

@@ -8,12 +8,13 @@ bench.py.
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 NUM_READS = 8192
 READ_LENGTH = 150
@@ -72,20 +73,14 @@ def main():
     engine.process_batch(queries)
     note("warmup done")
     engine.stats_fallback_reads = 0
-    # two pass-groups separated by a pause (the shared service's phase
-    # swings minute-to-minute; same spread-group methodology as bench.py)
     import os as _os
 
     pass_seconds = []
-    n_passes = int(_os.environ.get("HARD_PASSES", 3))
-    for g in range(2):
-        if g:
-            time.sleep(float(_os.environ.get("HARD_GAP", 20)))
-        for i in range(n_passes):
-            t0 = time.time()
-            results = engine.process_batch(queries)
-            pass_seconds.append(time.time() - t0)
-            note(f"pass {g}.{i}: {pass_seconds[-1]:.1f}s")
+    for i in range(int(_os.environ.get("HARD_PASSES", 6))):
+        t0 = time.time()
+        results = engine.process_batch(queries)
+        pass_seconds.append(time.time() - t0)
+        note(f"pass {i}: {pass_seconds[-1]:.1f}s")
     elapsed = min(pass_seconds)
     aligned = sum(1 for r in results if r.get_total_of_all_components() > 0)
     fallback_fraction = engine.stats_fallback_reads / (len(pass_seconds) * len(queries))

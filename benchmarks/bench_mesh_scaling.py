@@ -1,13 +1,12 @@
 """Mesh scaling measurement (VERDICT r3 #4): the sharded banded-scoring step
 at 1 / 2 / 4 / 8 shards on the virtual CPU mesh, host stages excluded.
 
-On this host the 8 "devices" are XLA host-platform threads on 2 vCPUs, so
-wall-clock cannot drop past ~2x — the honest scaling evidence is
+The 8 "devices" are XLA host-platform threads sharing the host's cores, so
+wall-clock scaling is bounded by the core count — the scaling evidence is
 (a) per-shard work drops linearly (the sharded program's per-device cost is
 measured via single-device runs on the same-sized shard), and
 (b) the sharded dispatch adds no per-device overhead beyond the collective-
-free scoring program itself.  The TPU scaling model extrapolated from these
-plus the real-chip stage measurements lives in BENCH.md ("Scaling model").
+free scoring program itself.
 
 Prints one JSON line."""
 
@@ -16,7 +15,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault(
     "XLA_FLAGS",
     (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip(),
@@ -26,7 +25,8 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/mapper_tpu_jax_cache")
+
+import mapper_tpu  # noqa: E402,F401  (configures the persistent compile cache)
 
 import numpy as np  # noqa: E402
 

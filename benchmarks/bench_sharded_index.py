@@ -1,14 +1,14 @@
 """Sharded-index lookup rate (VERDICT r3 #6): 4.6 Mb reference, hash-range
 shards over an 8-virtual-device CPU mesh (JAX_PLATFORMS=cpu +
 xla_force_host_platform_device_count=8; the value-balanced layout and psum
-merge are exactly what a multi-chip TPU mesh runs).  Prints one JSON line."""
+merge are exactly what a multi-device mesh runs).  Prints one JSON line."""
 
 import json
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault(
     "XLA_FLAGS",
     (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip(),

@@ -8,7 +8,7 @@ import os
 import pstats
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 

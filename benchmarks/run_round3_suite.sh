@@ -1,8 +1,7 @@
 #!/bin/bash
-# Sequential round-3 TPU benchmark suite: one process at a time holds the TPU.
-cd /root/repo
+# Sequential benchmark suite: one process at a time holds the device.
+cd "$(dirname "$0")/.."
 set -x
-timeout 900 python -u benchmarks/tpu_parity.py
 timeout 900 python -u benchmarks/bench_hard.py
 timeout 900 python -u benchmarks/bench_hard_pe.py
 timeout 1200 python -u benchmarks/bench_fused.py 4

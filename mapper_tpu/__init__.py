@@ -1,14 +1,15 @@
-"""mapper_tpu — a TPU-native read-alignment and variant-summarization engine.
+"""mapper_tpu — a batched read-alignment and variant-summarization engine.
 
 A from-scratch reimplementation of the capabilities of X-Mapper
-(mathjeff/Mapper 1.2.2, Java) designed TPU-first:
+(mathjeff/Mapper 1.2.2, Java) designed around batched device scoring:
 
 - reference indexing uses the same deterministic, content-defined multi-scale
   "hashblock"/"gapmer" scheme (reference: HashBlock.java, HashBlock_Database.java),
   built host-side into flat device-ready arrays;
 - seed lookup is a vectorized gather over a packed hash table;
 - candidate extension is a penalty-bounded banded DP (reference: PathAligner.java)
-  executed as a batched Pallas TPU kernel over packed 4-bit bases;
+  executed for whole batches on the device — a CUDA kernel on NVIDIA GPUs,
+  plain XLA elsewhere — over packed 4-bit bases;
 - variant summarization (VCF / mutations / refs-map-count) accumulates per-position
   depth and allele counts with segment-sums.
 
@@ -20,28 +21,25 @@ Public API (mirrors reference Api.java):
 
 import os as _os
 
-# Persistent compilation cache: TPU kernel compiles in this environment go
-# through a remote AOT service (measured 30s-10min for the same program on
-# different minutes); cache the executables on disk across processes.  The
-# installed jax does not read JAX_COMPILATION_CACHE_DIR from the environment
-# (jax.config.jax_compilation_cache_dir stays None), so set the config
-# directly; respect an explicit env var / earlier jax.config.update.
-_os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/mapper_tpu_jax_cache")
+# the checkout's own compile-cache directory (listed in .gitignore)
+_CHECKOUT_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compile_cache_dir() -> str:
+    """The persistent compilation cache: JAX_COMPILATION_CACHE_DIR when it is
+    set (JAX reads it itself), else the fixed directory inside the checkout.
+    Tests and benchmarks use the same resolver."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _CHECKOUT_CACHE
 
 
 def _configure_jax_cache() -> None:
-    try:
-        import jax
-    except Exception:  # pragma: no cover - jax is a hard dependency in practice
-        return
-    try:
-        if jax.config.jax_compilation_cache_dir is None:
-            jax.config.update(
-                "jax_compilation_cache_dir", _os.environ["JAX_COMPILATION_CACHE_DIR"]
-            )
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - never block import on cache setup
-        pass
+    import jax
+
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _CHECKOUT_CACHE)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 _configure_jax_cache()

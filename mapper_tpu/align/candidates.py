@@ -14,7 +14,7 @@ Faithful port of the query-side search of the reference:
   paths into QueryMatches; for pairs, candidates are bucketed by strand and
   joined within the spacing window.
 
-This is the per-query sequential control path; the TPU batch pipeline replaces
+This is the per-query sequential control path; the batch pipeline replaces
 the inner loops (index lookup -> gather, voting -> segment-sum) while this
 module remains the semantic reference.
 """
@@ -55,8 +55,8 @@ class QueryPyramid:
         # clean queries defer the native whole-pyramid row build until a row
         # is actually requested: with the native walk + native counting the
         # Python walker never materializes rows at all, and mapper_query_walk
-        # recomputes rows internally from the codes (BENCH.md "Hard-SE
-        # budget" — the eager build was ~8% of the fallback worker)
+        # recomputes rows internally from the codes (the eager build was ~8% of
+        # the fallback worker's time in a CPU profile)
         self._native_pending = False
         if codes.shape[0] and not np.any(basepairs.POPCOUNT_TABLE[codes] != 1):
             if _os.environ.get("MAPPER_TPU_NATIVE", "1") != "0":

@@ -24,8 +24,8 @@ QueryMatch_Aligner.java:18-29) with a direct formulation:
     * right-shift indel justification (justify, java:307-352).
   The reference reaches the same optimum through a chain of bound-proving
   heuristics (HashBlock_Aligner) and divide-and-conquer (BlockAligner); here a
-  single exact DP replaces them — the TPU path batches this same DP as a
-  Pallas kernel and the heuristics become batched masked filters.
+  single exact DP replaces them — the batch path runs this same DP banded on
+  the device and the heuristics become batched masked filters.
 
 The search direction heuristic (PathAligner.chooseSearchReverse, java:17-53)
 is reproduced because which query end may hang off a contig edge depends on it;

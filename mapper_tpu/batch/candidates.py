@@ -1,6 +1,6 @@
 """Batched candidate generation: whole-batch seed lookup and offset voting.
 
-The TPU-first replacement for the per-read adaptive walk of
+The batched replacement for the per-read adaptive walk of
 align/candidates.py: a batch of reads is concatenated into one array, the
 pyramid and gapmers are computed for the entire batch in a handful of
 vectorized passes (mapper_tpu.index.hashblock with segment ids), every

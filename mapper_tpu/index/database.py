@@ -6,7 +6,7 @@ PackedIndex per block size (numBasepairsUsed), hashes the reference's forward
 sequences through a target size, and supports lazy growth when a query needs
 longer blocks (requireSetUpThroughSize, java:148-215).
 
-TPU-first: the whole reference is hashed with the vectorized pyramid (one
+Batch-first: the whole reference is hashed with the vectorized pyramid (one
 numpy pass per level per contig — the reference's 50kb HashJobs and
 work-stealing threads exist to parallelize its per-block object walk, which
 the vectorization replaces), and the per-size CSR arrays are directly

@@ -9,7 +9,7 @@ Counting_HashBlockPath.java:98-153).  Bins holding more than
 (PackedMap.get, java:160-172).
 
 The layout is CSR over bins: `offsets[capacity+1]` into a single sorted int64
-`values` array of encoded global positions — exactly the two arrays the TPU
+`values` array of encoded global positions — exactly the two arrays the device
 seed-lookup gather consumes.  Values within a bin are sorted ascending, which is
 the canonical, insertion-order-independent order (the reference's
 ByteKeyStore.pack; audited by PackedMap.verifyMatches / --verify-consistent-db).

@@ -1,12 +1,14 @@
 """Native (C++) runtime components, bound via ctypes.
 
-The compute path is JAX/XLA/Pallas; these are the host-side hot loops around
-it — currently the exact glocal DP (dp.cpp) used by the sequential engine's
-extend step and the batch engine's traceback finalization.  The library is
-compiled on first use (g++ is part of the toolchain) and cached OUTSIDE the
-source tree in a directory keyed by the source content hash (no stale-binary
-risk, no build artifacts in git); everything degrades gracefully to the numpy
-implementation when a compiler is unavailable.
+The device compute path is JAX/XLA plus one CUDA kernel (banded_dp.cu, built
+with nvcc by get_cuda_library); the rest are the host-side hot loops around
+it — the exact glocal DP (dp.cpp) used by the sequential engine's extend step
+and the batch engine's traceback finalization, candidate generation and the
+counting layer.  The host libraries are compiled on first use (g++ is part
+of the toolchain) and cached OUTSIDE the source tree in a directory keyed by
+the source content hash (no stale-binary risk, no build artifacts in git);
+everything degrades gracefully to the numpy implementation when a compiler
+is unavailable.
 """
 
 from __future__ import annotations
@@ -78,6 +80,65 @@ def _build(source: str, library: str, extra=()) -> bool:
         return True
     except Exception:
         return False
+
+
+_CUDA_SOURCE = os.path.join(_HERE, "banded_dp.cu")
+_cuda_lib = None
+# seconds the last nvcc build took (None when the cached library was loaded)
+cuda_build_seconds = None
+
+
+def _find_nvcc() -> str:
+    import shutil
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def get_cuda_library():
+    """The Hopper scorer kernel (banded_dp.cu), compiled with nvcc for sm_90a
+    on first use into the source-hash-keyed native cache and loaded.  Unlike
+    the host libraries there is no fallback: a failed build raises, so a GPU
+    run never silently scores elsewhere."""
+    global _cuda_lib, cuda_build_seconds
+    if _cuda_lib is not None:
+        return _cuda_lib
+    with _lock:
+        if _cuda_lib is not None:
+            return _cuda_lib
+        import time
+
+        import jax
+        import jax.ffi
+
+        include = jax.ffi.include_dir()
+        # the FFI ABI follows jaxlib: key the binary on its version too
+        stem = f"libmapperbanded-jax{jax.__version__}"
+        library = _library_path(_CUDA_SOURCE, stem)
+        if not os.path.exists(library):
+            t0 = time.perf_counter()
+            tmp = f"{library}.{os.getpid()}.tmp"
+            cmd = [
+                _find_nvcc(),
+                "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-I", include, _CUDA_SOURCE, "-o", tmp,
+            ]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"cannot run nvcc to build {_CUDA_SOURCE}: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {_CUDA_SOURCE}:\n{proc.stderr[-4000:]}"
+                )
+            os.replace(tmp, library)
+            cuda_build_seconds = time.perf_counter() - t0
+        _cuda_lib = ctypes.CDLL(library)
+    return _cuda_lib
 
 
 def get_library():

@@ -10,8 +10,7 @@
 // This module replays those rows through the counter bookkeeping —
 // neighbor-linked offset counters per (strand, contig), distinct-mismatch
 // history scans, good/priority declaration — which profiling showed is the
-// dominant Python cost of the sequential fallback worker (BENCH.md
-// "Hard-SE budget").  All input arrays are BORROWED: the Python wrapper
+// dominant Python cost of the sequential fallback worker.  All input arrays are BORROWED: the Python wrapper
 // keeps them alive for the handle's lifetime.
 
 #include <algorithm>

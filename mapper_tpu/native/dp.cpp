@@ -1878,7 +1878,7 @@ void mapper_local_align_batch(
   // loop): the four-lane grouped fill with AVX2 intrinsics — one cached
   // penalty gather per y, every mask derived from interleaved window codes
   // with integer vector ops — measures 66 vs 117 ms per 3042-problem
-  // hard-SE wave (BENCH.md "SIMD wave").  Auto-vectorization alone made it
+  // hard-SE wave on a 2-vCPU host.  Auto-vectorization alone made it
   // SLOWER (273 ms): the per-lane row pointers defeat GCC's SLP, which is
   // why the AVX2 block exists.  Byte-identity vs the scalar path is pinned
   // by test_simd_wave_batch_matches_scalar.

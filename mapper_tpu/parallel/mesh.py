@@ -1,11 +1,11 @@
 """Multi-chip scaling: data-parallel sharding of the alignment pipeline.
 
 The reference's only parallelism is intra-JVM worker threads over read batches
-(SURVEY.md §2.2).  The TPU-native equivalent is a 1-D `data` mesh:
+(SURVEY.md §2.2).  The device equivalent is a 1-D `data` mesh:
 
 - read batches shard over the `data` axis (each chip scores its candidates);
 - the packed index / reference arrays replicate (bacterial genomes are far
-  below HBM; hash-range sharding + all-to-all is the planned path for
+  below device memory; hash-range sharding + all-to-all is the planned path for
   reference sets beyond HBM);
 - per-position pileup accumulators merge with `psum` — the listener fan-in of
   the reference (AlignmentListener.addAlignments) becomes pure addition.
@@ -20,18 +20,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
-    """jax.shard_map across jax versions (jax.experimental.shard_map in older
-    releases).  The varying-manual-axes check is disabled: the scoring loops
-    initialize carries from constants, which the checker types as unvarying
-    even though the loop outputs vary over `data`."""
-    if hasattr(jax, "shard_map"):
-        sm = jax.shard_map
-    else:
-        from jax.experimental.shard_map import shard_map as sm
-    try:
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
-    except TypeError:
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False)
+    """jax.shard_map with the varying-manual-axes check disabled: the scoring
+    loops initialize carries from constants, which the checker types as
+    unvarying even though the loop outputs vary over `data`."""
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
+    )
 
 
 def make_mesh(devices=None) -> Mesh:
@@ -56,7 +50,7 @@ def sharded_banded_scores(mesh: Mesh, params, band: int):
     sharded on the batch axis, scores sharded the same way (no collectives
     needed — scoring is embarrassingly parallel; the pileup reduction below is
     where psum appears)."""
-    from mapper_tpu.align.pallas_dp import _banded_scores_jnp, _params_tuple
+    from mapper_tpu.align.banded_dp import _banded_scores_jnp, _params_tuple
 
     batch_sharding = NamedSharding(mesh, P("data"))
 

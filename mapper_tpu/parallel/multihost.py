@@ -1,11 +1,12 @@
-"""Multi-process / multi-host execution (SURVEY §2.2's stated TPU mapping of
-the reference's thread-pool scale story, Mapper.java:943-1101).
+"""Multi-process / multi-host execution (SURVEY §2.2's mapping of the
+reference's thread-pool scale story, Mapper.java:943-1101).
 
-Model: N processes (one per host in a pod, or N local processes in CI) each
-align a round-robin share of the query stream — query with global index i
-belongs to process i % N, and keeps its global id so outputs are mergeable in
-exact 1-process order.  `jax.distributed.initialize` links the processes
-(gloo on CPU, ICI/DCN on TPU pods) for barriers; result merging is:
+Model: N processes (one per host, or N local processes) each align a
+round-robin share of the query stream — query with global index i belongs to
+process i % N, and keeps its global id so outputs are mergeable in exact
+1-process order.  Each process on a GPU host takes one card of its own
+(card_for_process).  `jax.distributed.initialize` links the processes for
+barriers when a coordinator is given; result merging is:
 
 - SAM: each process renders its results keyed by global query id into a
   shard file; after a cross-process barrier, process 0 interleaves the shards
@@ -20,6 +21,7 @@ exact 1-process order.  `jax.distributed.initialize` links the processes
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 import time
@@ -27,13 +29,63 @@ import time
 import numpy as np
 
 
-def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
+def local_card_count(platforms: str | None = None) -> int:
+    """NVIDIA cards on this host that JAX may use, counted without
+    initializing JAX (initialization would reserve memory on every visible
+    card).  0 when JAX is held to other platforms (`platforms` defaults to
+    JAX's own setting)."""
+    if platforms is None:
+        import jax
+
+        platforms = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS") or ""
+    if platforms and not {"cuda", "gpu"} & set(platforms.split(",")):
+        return 0
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        ids = [v.strip() for v in visible.split(",") if v.strip()]
+        return 0 if "-1" in ids else len(ids)
+    return len(glob.glob("/dev/nvidia[0-9]*"))
+
+
+def card_for_process(
+    process_id: int, num_processes: int, num_cards: int, single_host: bool = True
+) -> int | None:
+    """The card a process takes: process_id % num_cards, or None on a host
+    without cards.  A JAX process reserves most of a card's memory, so two
+    processes cannot share one: on a single host, more processes than cards
+    is a usage error (ValueError)."""
+    if num_cards <= 0:
+        return None
+    if single_host and num_processes > num_cards:
+        raise ValueError(
+            f"--num-processes {num_processes} needs one GPU per process; "
+            f"this host has {num_cards}"
+        )
+    return process_id % num_cards
+
+
+def bind_card(card: int | None) -> None:
+    """Make `card` the only device this process's JAX sees (before any
+    backend initialization)."""
+    if card is None:
+        return
+    import jax
+
+    jax.config.update("jax_cuda_visible_devices", str(card))
+
+
+def initialize(
+    coordinator: str, num_processes: int, process_id: int, card: int | None = None
+) -> None:
     """jax.distributed.initialize wrapper (idempotent)."""
     import jax
 
     try:
         jax.distributed.initialize(
-            coordinator, num_processes=num_processes, process_id=process_id
+            coordinator,
+            num_processes=num_processes,
+            process_id=process_id,
+            local_device_ids=None if card is None else [card],
         )
     except RuntimeError as e:  # already initialized
         if "already" not in str(e).lower():

@@ -1,16 +1,16 @@
 """Hash-range sharding of the packed index across a device mesh.
 
-For reference sets whose index exceeds a single chip's HBM, the merged
+For reference sets whose index exceeds a single device's memory, the merged
 PackedIndex bins (index/database.py::merged_index) split into contiguous
 bin ranges, one per device along the mesh's ``data`` axis.  Seed keys are
 small and replicate to every device; each device answers only the bins it
 owns and the per-seed contributions merge with a ``psum`` (non-owners
 contribute zeros).  This is the "shard by hash range + all-to-all" design
 from SURVEY.md §7 stage 6 — with replicated queries the all-to-all
-degenerates into one psum, which rides the ICI.
+degenerates into one psum over the device interconnect.
 
 The reference has no equivalent (its PackedMaps live in one JVM heap;
-HashBlock_Database.java:682-683); this is the TPU-native scale-out path.
+HashBlock_Database.java:682-683); this is the device scale-out path.
 """
 
 from __future__ import annotations
@@ -20,10 +20,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:  # jax >= 0.8 moved shard_map to the top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 

@@ -16,7 +16,7 @@ Semantics:
 - alignments against reverse-strand contigs are folded onto the forward
   contig's coordinates.
 
-TPU-first: the accumulators are flat per-contig arrays filled with
+Batch-first: the accumulators are flat per-contig arrays filled with
 np.add.at scatter-adds (device version: segment-sums over the batch, psum over
 the data-parallel mesh), so merging shards is pure addition.
 """

@@ -6,7 +6,7 @@ Mirrors the reference's QuickVariants `Sequence`, `SequenceBuilder` and
 sort-and-add-reverse-complements convention and PackedMap.java:124-171 for the
 position codec).
 
-TPU-first notes: a Sequence wraps a numpy uint8 array of 4-bit codes — the exact
+Batch-first notes: a Sequence wraps a numpy uint8 array of 4-bit codes — the exact
 bytes the device kernels consume. The SequenceDatabase assigns every sequence
 (forward and reverse-complement) a contiguous range in one global coordinate
 space so a (sequence, offset) position packs into a single int64; the packed

@@ -166,7 +166,7 @@ def test_agreement_fuzz_large():
     """Large randomized agreement fuzz (VERDICT r2 item 5): thousands of
     reads with SNPs, indels, N bases, RC and unalignable junk through both
     engines; every summarized alignment set must match.  CI runs 2500 reads;
-    set MAPPER_TPU_FUZZ_N=10000 for the full sweep (recorded in BENCH.md)."""
+    set MAPPER_TPU_FUZZ_N=10000 for the full sweep."""
     import os
 
     n_reads = int(os.environ.get("MAPPER_TPU_FUZZ_N", "2500"))

@@ -42,7 +42,7 @@ def summarize(qa):
 
 
 def test_gathered_scores_shard_over_mesh(setup):
-    from mapper_tpu.align import pallas_dp
+    from mapper_tpu.align import banded_dp
 
     ref_text, index = setup
     mesh = make_mesh(jax.devices())
@@ -69,13 +69,13 @@ def test_gathered_scores_shard_over_mesh(setup):
         params=params,
         band=band,
         tile=8,
-        use_pallas=False,
+        scorer="xla",
     )
-    s0, u0 = pallas_dp.banded_scores_gathered(reads, concat_dev, **args)
+    s0, u0 = banded_dp.banded_scores_gathered(reads, concat_dev, **args)
     from jax.sharding import NamedSharding, PartitionSpec
 
     concat_rep = jax.device_put(concat, NamedSharding(mesh, PartitionSpec()))
-    s1, u1 = pallas_dp.banded_scores_gathered(reads, concat_rep, mesh=mesh, **args)
+    s1, u1 = banded_dp.banded_scores_gathered(reads, concat_rep, mesh=mesh, **args)
     np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
     np.testing.assert_array_equal(np.asarray(u0), np.asarray(u1))
 

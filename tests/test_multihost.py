@@ -2,12 +2,17 @@
 produce byte-identical SAM and VCF to the 1-process run (VERDICT r2 item 4;
 SURVEY §2.2's multi-host mapping)."""
 
+import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from mapper_tpu import basepairs
+from mapper_tpu.parallel import multihost
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DRIVER = """
 import sys
@@ -19,7 +24,7 @@ sys.exit(main({args!r}))
 """
 
 
-def run_cli_subprocess(args, repo="/root/repo"):
+def run_cli_subprocess(args, repo=REPO):
     return subprocess.Popen(
         [sys.executable, "-c", DRIVER.format(repo=repo, args=args)],
         stdout=subprocess.DEVNULL,
@@ -91,3 +96,34 @@ def test_two_process_run_matches_single(tmp_path):
     serial_vcf = (tmp_path / "serial.vcf").read_text()
     multi_vcf = (tmp_path / "multi.vcf").read_text()
     assert multi_vcf == serial_vcf, "VCF diverged across process counts"
+
+
+@pytest.mark.parametrize(
+    "process_id, num_processes, num_cards, single_host, card",
+    [
+        (0, 2, 4, True, 0),
+        (3, 4, 4, True, 3),
+        (5, 8, 4, False, 1),  # one process per card on each of two hosts
+        (1, 2, 0, True, None),  # no card: CPU processes share the host
+    ],
+)
+def test_card_for_process(process_id, num_processes, num_cards, single_host, card):
+    assert (
+        multihost.card_for_process(process_id, num_processes, num_cards, single_host)
+        == card
+    )
+
+
+def test_more_processes_than_cards_is_a_usage_error():
+    with pytest.raises(ValueError, match="one GPU per process"):
+        multihost.card_for_process(0, 3, 2, single_host=True)
+
+
+def test_local_card_count(monkeypatch):
+    assert multihost.local_card_count() == 0  # the tests hold JAX to the CPU
+    assert multihost.local_card_count("cpu") == 0
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,2,3")
+    assert multihost.local_card_count("cuda") == 3
+    assert multihost.local_card_count("") == 3
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "-1")
+    assert multihost.local_card_count("cuda,cpu") == 0
